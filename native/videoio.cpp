@@ -1,6 +1,6 @@
 // Native video IO: mmap-backed frame sources with a prefetch ring.
 //
-// TPU-native counterpart of the reference's native decode layer
+// Counterpart of the reference's native decode layer
 // (OpenCV/FFmpeg behind cv2.VideoCapture, optical_flow.py:62-85).
 // Codec decode stays pluggable on the Python side (cv2 backend); this
 // library owns the zero-copy raw paths that production capture rigs
@@ -12,7 +12,7 @@
 //  - YUV4MPEG2 (y4m) files (luma plane)
 //
 // A background worker thread converts/copies frames into a bounded
-// ring of buffers so the host->device feed overlaps TPU compute.
+// ring of buffers so the host->device feed overlaps device compute.
 //
 // Exposed as a C ABI for ctypes (no pybind11 dependency).
 

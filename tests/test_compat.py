@@ -11,8 +11,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from btcs_pnes_optical_flow_tpu.compat import optical_PC1, optical_PCA, optical_flow
-from btcs_pnes_optical_flow_tpu.dataio import contracts
+from btcs_pnes_optical_flow.compat import optical_PC1, optical_PCA, optical_flow
+from btcs_pnes_optical_flow.dataio import contracts
 from tests import reference_impl as ri
 from tests.test_pipeline import ROI, make_skeleton, render_clip
 

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from btcs_pnes_optical_flow_tpu.config import FarnebackParams
-from btcs_pnes_optical_flow_tpu.ops import cvx
-from btcs_pnes_optical_flow_tpu.ops.farneback import farneback_flow, poly_exp
+from btcs_pnes_optical_flow.config import FarnebackParams
+from btcs_pnes_optical_flow.ops import cvx
+from btcs_pnes_optical_flow.ops.farneback import farneback_flow, poly_exp
 
 
 def _texture(h, w, rng, shift=(0.0, 0.0)):
@@ -172,7 +172,7 @@ def test_flow_use_initial_flow(rng):
 
 def test_flow_multi_roi_features(rng):
     """Bilateral (multi-ROI) feature extraction (BASELINE config 2)."""
-    from btcs_pnes_optical_flow_tpu.models.flow import roi_body_flow
+    from btcs_pnes_optical_flow.models.flow import roi_body_flow
 
     h, w = 64, 80
     f0 = _texture(h, w, rng)
@@ -192,22 +192,39 @@ def test_flow_multi_roi_features(rng):
         )
 
 
-def test_fused_kernels_reject_oversized_halo():
-    """ADVICE r1: winsize>=19 / poly_n>8 exceed the fused kernels'
-    static 8-row halo; they must fail loudly (and farneback_flow must
-    route such params to the exact XLA path instead)."""
-    import pytest
+def test_roi_reduction_matches_float64_mean(rng):
+    """The ROI reduction (HIGHEST-precision einsum) equals a float64
+    NumPy masked mean of the body-axis projections."""
+    from btcs_pnes_optical_flow.models.flow import _project_reduce
 
-    from btcs_pnes_optical_flow_tpu.config import FarnebackParams
-    from btcs_pnes_optical_flow_tpu.ops import farneback as fb
-    from btcs_pnes_optical_flow_tpu.ops import farneback_pallas as fbp
+    b, h, w = 3, 40, 56
+    flow = rng.normal(0, 3, (b, h, w, 2)).astype(np.float32) + 100.0
+    theta = rng.uniform(0, np.pi, b)
+    ex = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    ey = np.stack([-np.sin(theta), np.cos(theta)], -1).astype(np.float32)
+    masks = np.zeros((2, h, w), bool)
+    masks[0, 5:30, 3:40] = True
+    masks[1, ::3, ::2] = True
+    got = _project_reduce(jnp.asarray(flow), jnp.asarray(ex), jnp.asarray(ey), jnp.asarray(masks))
+    f64 = flow.astype(np.float64)
+    fx = f64[..., 0] * ex[:, 0, None, None] + f64[..., 1] * ex[:, 1, None, None]
+    fy = f64[..., 0] * ey[:, 0, None, None] + f64[..., 1] * ey[:, 1, None, None]
+    for r in range(2):
+        np.testing.assert_allclose(np.asarray(got.vx)[:, r], fx[:, masks[r]].mean(1), rtol=2e-6)
+        np.testing.assert_allclose(np.asarray(got.vy)[:, r], fy[:, masks[r]].mean(1), rtol=2e-6)
+        np.testing.assert_allclose(
+            np.asarray(got.mag)[:, r], np.hypot(fx, fy)[:, masks[r]].mean(1), rtol=2e-6
+        )
 
-    img = jnp.zeros((1, 32, 64), jnp.float32)
-    m = jnp.zeros((1, 32, 64, 5), jnp.float32)
-    with pytest.raises(ValueError, match="poly_n"):
-        fbp.poly_exp_fused(img, n=9, sigma=1.5)
-    with pytest.raises(ValueError, match="winsize"):
-        fbp.update_flow_fused(m, winsize=19)
-    # Selector falls back to the exact implementations.
-    assert fb._select_update_flow(FarnebackParams(winsize=21)) is fb.update_flow
-    assert fb._select_poly_exp(FarnebackParams(poly_n=9)) is fb.poly_exp
+
+def test_flow_seq_matches_pairwise(rng):
+    """farneback_flow_seq over an (N+1)-frame sequence equals
+    farneback_flow on each consecutive pair."""
+    from btcs_pnes_optical_flow.ops.farneback import farneback_flow_seq
+
+    frames = np.stack([_texture(48, 64, rng, shift=(0.7 * i, -0.4 * i)) for i in range(4)])
+    seq = np.asarray(farneback_flow_seq(jnp.asarray(frames)))
+    assert seq.shape == (3, 48, 64, 2)
+    for i in range(3):
+        pair = np.asarray(farneback_flow(jnp.asarray(frames[i]), jnp.asarray(frames[i + 1])))
+        np.testing.assert_allclose(seq[i], pair, atol=1e-5)

@@ -1,4 +1,4 @@
-"""Differential tests: TPU filter ops vs SciPy reference behavior.
+"""Differential tests: JAX filter ops vs SciPy reference behavior.
 
 Covers the behavioral contract of optical_PCA.py:64-121 and
 optical_PC1.py:47-76 (SURVEY.md C10-C13, C18-C19).
@@ -11,7 +11,7 @@ import scipy.signal
 
 import jax.numpy as jnp
 
-from btcs_pnes_optical_flow_tpu.ops import design, filters
+from btcs_pnes_optical_flow.ops import design, filters
 
 
 def _ref_sos():

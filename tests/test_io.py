@@ -4,12 +4,12 @@ import os
 import numpy as np
 import pytest
 
-from btcs_pnes_optical_flow_tpu.dataio.checkpoint import ChunkStore
-from btcs_pnes_optical_flow_tpu.dataio.video import ArraySource, ChunkPrefetcher
+from btcs_pnes_optical_flow.dataio.checkpoint import ChunkStore
+from btcs_pnes_optical_flow.dataio.video import ArraySource, ChunkPrefetcher
 
 
 def test_native_source_gray_exact(tmp_path, rng):
-    from btcs_pnes_optical_flow_tpu.dataio.native import NativeSource
+    from btcs_pnes_optical_flow.dataio.native import NativeSource
 
     g = rng.integers(0, 256, (12, 32, 40)).astype(np.uint8)
     p = str(tmp_path / "g.npy")
@@ -24,8 +24,8 @@ def test_native_source_gray_exact(tmp_path, rng):
 def test_native_source_bgr_matches_jax_gray(tmp_path, rng):
     import jax.numpy as jnp
 
-    from btcs_pnes_optical_flow_tpu.dataio.native import NativeSource
-    from btcs_pnes_optical_flow_tpu.ops.cvx import bgr2gray_u8
+    from btcs_pnes_optical_flow.dataio.native import NativeSource
+    from btcs_pnes_optical_flow.ops.cvx import bgr2gray_u8
 
     b = rng.integers(0, 256, (6, 24, 30, 3)).astype(np.uint8)
     p = str(tmp_path / "b.npy")
@@ -64,8 +64,8 @@ def test_chunk_store_roundtrip(tmp_path, rng):
 
 def test_flow_stage_resume(tmp_path, rng, monkeypatch):
     """Second run with a checkpoint dir must not recompute chunks."""
-    from btcs_pnes_optical_flow_tpu.dataio import contracts
-    from btcs_pnes_optical_flow_tpu.models import pipeline
+    from btcs_pnes_optical_flow.dataio import contracts
+    from btcs_pnes_optical_flow.models import pipeline
     from tests.test_pipeline import ROI, make_skeleton, render_clip
 
     clip = render_clip(n_frames=40)
@@ -75,15 +75,15 @@ def test_flow_stage_resume(tmp_path, rng, monkeypatch):
         ArraySource(clip, fps=30.0), skel, [ROI], chunk_pairs=16, checkpoint_dir=ck
     )
     calls = []
-    import btcs_pnes_optical_flow_tpu.models.pipeline as pl
+    import btcs_pnes_optical_flow.models.pipeline as pl
 
-    real = pl.roi_body_flow
+    real = pl.roi_body_flow_seq
 
     def spy(*args, **kw):
         calls.append(1)
         return real(*args, **kw)
 
-    monkeypatch.setattr(pl, "roi_body_flow", spy)
+    monkeypatch.setattr(pl, "roi_body_flow_seq", spy)
     b = pipeline.run_flow_stage(
         ArraySource(clip, fps=30.0), skel, [ROI], chunk_pairs=16, checkpoint_dir=ck
     )
@@ -105,8 +105,8 @@ def _write_y4m(path, frames, marker=b"FRAME\n"):
 def test_y4m_frame_markers_with_params(tmp_path, rng):
     """Y4M spec allows 'FRAME <params>\\n'; both readers must not
     misalign luma when markers carry (constant) parameters."""
-    from btcs_pnes_optical_flow_tpu.dataio.native import NativeSource
-    from btcs_pnes_optical_flow_tpu.dataio.video import Y4MSource
+    from btcs_pnes_optical_flow.dataio.native import NativeSource
+    from btcs_pnes_optical_flow.dataio.video import Y4MSource
 
     frames = rng.integers(0, 256, (5, 16, 24)).astype(np.uint8)
     p = str(tmp_path / "p.y4m")
@@ -126,7 +126,7 @@ def test_y4m_frame_markers_with_params(tmp_path, rng):
 def test_native_y4m_rejects_variable_markers(tmp_path, rng):
     """Variable-length frame markers can't use the fixed-stride native
     reader — opening must fail loudly, not return garbage luma."""
-    from btcs_pnes_optical_flow_tpu.dataio.native import NativeSource
+    from btcs_pnes_optical_flow.dataio.native import NativeSource
 
     frames = rng.integers(0, 256, (3, 8, 8)).astype(np.uint8)
     p = str(tmp_path / "v.y4m")
@@ -144,7 +144,7 @@ def test_mjpeg_avi_native_decode(tmp_path, rng):
     """Native RIFF walk + PIL JPEG decode must match cv2.VideoCapture
     on a real MJPEG AVI (written by OpenCV, read without it)."""
     cv2 = pytest.importorskip("cv2")
-    from btcs_pnes_optical_flow_tpu.dataio.codecs import MJPEGAviSource
+    from btcs_pnes_optical_flow.dataio.codecs import MJPEGAviSource
 
     h, w, n = 48, 64, 6
     # Gray content in all three channels: flat chroma removes the
@@ -183,11 +183,11 @@ def test_open_source_prefers_cv2_free_decoder(tmp_path, rng):
     """open_source must route .avi files to the native decoder (no
     cv2 required on the production input path)."""
     cv2 = pytest.importorskip("cv2")
-    from btcs_pnes_optical_flow_tpu.dataio.codecs import (
+    from btcs_pnes_optical_flow.dataio.codecs import (
         MJPEGAviSource,
         ffmpeg_binary,
     )
-    from btcs_pnes_optical_flow_tpu.dataio.video import open_source
+    from btcs_pnes_optical_flow.dataio.video import open_source
 
     if ffmpeg_binary() is not None:
         pytest.skip("ffmpeg present: dispatch prefers FFmpegSource")
@@ -206,7 +206,7 @@ def _install_fake_ffmpeg(tmp_path, monkeypatch, npy_path, h, w, fps):
     stderr and exits 1 (exactly like `ffmpeg -i file` with no output);
     decode mode streams the .npy frames as raw gray8 on stdout.  Lets
     FFmpegSource — the designated production decoder — execute under
-    the suite on hosts with no ffmpeg binary (VERDICT r2 weak #6)."""
+    the suite on hosts with no ffmpeg binary."""
     import stat
     import sys as _sys
 
@@ -239,7 +239,7 @@ def test_ffmpeg_source_decodes_and_timestamps(tmp_path, monkeypatch, rng):
     parsing (size/fps from the stderr stream line), raw-gray8 pipe
     decode, and the POS_MSEC-after-read timestamp rule
     (reference optical_flow.py:62-85,110-119)."""
-    from btcs_pnes_optical_flow_tpu.dataio.codecs import FFmpegSource, ffmpeg_binary
+    from btcs_pnes_optical_flow.dataio.codecs import FFmpegSource, ffmpeg_binary
 
     h, w, n, fps = 48, 64, 5, 25.0
     frames = rng.integers(0, 256, (n, h, w)).astype(np.uint8)
@@ -265,7 +265,7 @@ def test_ffmpeg_source_real_binary_roundtrip(tmp_path, rng):
     import shutil
     import subprocess
 
-    from btcs_pnes_optical_flow_tpu.dataio.codecs import FFmpegSource
+    from btcs_pnes_optical_flow.dataio.codecs import FFmpegSource
 
     bin_ = shutil.which("ffmpeg")
     if bin_ is None:

@@ -7,8 +7,8 @@ import scipy.signal
 
 import jax.numpy as jnp
 
-from btcs_pnes_optical_flow_tpu.models import metrics as metrics_model
-from btcs_pnes_optical_flow_tpu.models import pc1 as pc1_model
+from btcs_pnes_optical_flow.models import metrics as metrics_model
+from btcs_pnes_optical_flow.models import pc1 as pc1_model
 from tests import reference_impl as ri
 
 

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from btcs_pnes_optical_flow_tpu.ops import pca
+from btcs_pnes_optical_flow.ops import pca
 from tests.reference_impl import ref_dynamic_pc1
 
 

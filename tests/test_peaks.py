@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from btcs_pnes_optical_flow_tpu.ops import peaks
-from btcs_pnes_optical_flow_tpu.ops.filters import smooth_window_len
+from btcs_pnes_optical_flow.ops import peaks
+from btcs_pnes_optical_flow.ops.filters import smooth_window_len
 from tests import reference_impl as ri
 
 

@@ -6,7 +6,7 @@ import scipy.stats
 
 import jax.numpy as jnp
 
-from btcs_pnes_optical_flow_tpu.ops import stats
+from btcs_pnes_optical_flow.ops import stats
 from tests import reference_impl as ri
 
 

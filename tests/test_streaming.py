@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from btcs_pnes_optical_flow_tpu.config import PCAParams, PipelineConfig, MetricParams
-from btcs_pnes_optical_flow_tpu.models.streaming import pc1_streaming
-from btcs_pnes_optical_flow_tpu.models.pc1 import pc1_from_flow
-from btcs_pnes_optical_flow_tpu.parallel.runner import CohortItem, run_cohort
-from btcs_pnes_optical_flow_tpu.dataio.video import ArraySource
+from btcs_pnes_optical_flow.config import PCAParams, PipelineConfig, MetricParams
+from btcs_pnes_optical_flow.models.streaming import pc1_streaming
+from btcs_pnes_optical_flow.models.pc1 import pc1_from_flow
+from btcs_pnes_optical_flow.parallel.runner import CohortItem, run_cohort
+from btcs_pnes_optical_flow.dataio.video import ArraySource
 
 
 def _long_signal(n, rng):
@@ -54,8 +54,8 @@ def test_cohort_runner_isolates_failures(rng, tmp_path):
     cfg = PipelineConfig(metrics=MetricParams(window_sec=2.0))
     df = run_cohort([good, bad], cfg, chunk_pairs=16, out_csv=str(tmp_path / "cohort.csv"))
     assert len(df) == 2
-    g = df[df.video == "good"].iloc[0]
-    b = df[df.video == "bad"].iloc[0]
+    g = df[df["video"] == "good"][0]
+    b = df[df["video"] == "bad"][0]
     assert g["error"] == ""
     assert b["status"] == -1 and b["error"] != ""
     assert np.isnan(b["PC1_area_0_10"])

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from btcs_pnes_optical_flow_tpu.ops.tvl1 import TVL1Params, tvl1_flow
+from btcs_pnes_optical_flow.ops.tvl1 import TVL1Params, tvl1_flow
 
 
 def _texture(h, w, rng, shift=(0.0, 0.0)):
@@ -36,8 +36,8 @@ def test_tvl1_zero_motion(rng):
 
 def test_tvl1_rotation_epe(rng):
     """Non-trivial (rotational) motion: EPE vs the known ground-truth
-    field must stay under 0.3 px in the interior (VERDICT r2 weak #8:
-    convergence was asserted only on pure translations)."""
+    field must stay under 0.15 px in the interior, beyond the pure
+    translations of the other tests."""
     h, w = 96, 112
     cy, cx = (h - 1) / 2, (w - 1) / 2
     ang = 0.02  # ~1.5 px peak displacement in the asserted interior
@@ -74,105 +74,8 @@ def test_tvl1_rotation_epe(rng):
     assert epe < 0.15, epe
 
 
-def test_tvl1_banded_engine_matches_exact(rng):
-    """The full Pallas production configuration — banded warp AND the
-    VMEM-resident primal–dual chain (both engaged by interpret mode,
-    like on TPU) — must match the all-XLA engine when no candidates
-    clip.  epsilon=0 on both sides: the resident chain always runs the
-    full static iteration count, so the equality claim is made where
-    both engines execute identical math."""
-    h, w = 48, 64
-    f0 = _texture(h, w, rng)
-    f1 = _texture(h, w, rng, shift=(1.1, -0.6))
-    p_ex = TVL1Params(warp_engine="exact", pd_engine="xla",
-                      n_scales=2, n_warps=2, n_iterations=8, epsilon=0.0)
-    p_bd = TVL1Params(warp_engine="banded",
-                      n_scales=2, n_warps=2, n_iterations=8, epsilon=0.0)
-    ref = np.asarray(tvl1_flow(jnp.asarray(f0), jnp.asarray(f1), p_ex))
-    got, clips = tvl1_flow(
-        jnp.asarray(f0), jnp.asarray(f1), p_bd, return_clip=True, interpret=True
-    )
-    assert int(np.asarray(clips)) == 0
-    np.testing.assert_allclose(np.asarray(got), ref, atol=2e-5)
-
-
-def test_tvl1_resident_pd_blocked_matches_xla(rng):
-    """The row-blocked (time-tiled) resident chain: an image past the
-    single-block VMEM threshold splits into overlapping halo slabs —
-    interior results must still equal the XLA pd loop exactly (the
-    2-rows-per-iteration dependence cone must be fully inside the
-    halo), including the image-boundary conditions at block edges."""
-    from btcs_pnes_optical_flow_tpu.ops.tvl1_pallas import (
-        _block_geometry,
-        pd_chain_resident,
-    )
-
-    h, w, k = 512, 512, 4
-    _bh, halo, n_blocks, _, _ = _block_geometry(h, w, k)
-    assert n_blocks > 1 and halo >= 2 * k  # really exercises blocking
-
-    def smooth(a):
-        kern = np.ones(9) / 9.0
-        a = np.apply_along_axis(lambda r: np.convolve(r, kern, "same"), 0, a)
-        return np.apply_along_axis(lambda r: np.convolve(r, kern, "same"), 1, a)
-
-    u = jnp.asarray(smooth(rng.normal(0, 1, (h, w))).astype(np.float32))[None]
-    v = jnp.asarray(smooth(rng.normal(0, 1, (h, w))).astype(np.float32))[None]
-    rho_c = jnp.asarray(smooth(rng.normal(0, 5, (h, w))).astype(np.float32))[None]
-    i1wx = jnp.asarray(smooth(rng.normal(0, 2, (h, w))).astype(np.float32))[None]
-    i1wy = jnp.asarray(smooth(rng.normal(0, 2, (h, w))).astype(np.float32))[None]
-    grad_sq = i1wx * i1wx + i1wy * i1wy
-
-    p = TVL1Params(n_iterations=k, n_warps=1, epsilon=0.0)
-    got = pd_chain_resident(
-        u, v, rho_c, i1wx, i1wy, grad_sq,
-        n_iterations=k, tau=p.tau, lambda_=p.lambda_, theta=p.theta,
-        interpret=True,
-    )
-
-    # Reference: the same chain via the xla while_loop semantics.
-    l_t = p.lambda_ * p.theta
-    tau_theta = p.tau / p.theta
-
-    def grad(f):
-        gx = np.concatenate([f[:, 1:] - f[:, :-1], np.zeros((h, 1), np.float32)], 1)
-        gy = np.concatenate([f[1:] - f[:-1], np.zeros((1, w), np.float32)], 0)
-        return gx, gy
-
-    def div(px, py):
-        dx = np.concatenate([px[:, :1], px[:, 1:-1] - px[:, :-2], -px[:, -2:-1]], 1)
-        dy = np.concatenate([py[:1], py[1:-1] - py[:-2], -py[-2:-1]], 0)
-        return dx + dy
-
-    un = np.asarray(u[0], np.float32)
-    vn = np.asarray(v[0], np.float32)
-    rc = np.asarray(rho_c[0]);  wx = np.asarray(i1wx[0])
-    wy = np.asarray(i1wy[0]);   gs2 = np.asarray(grad_sq[0])
-    gs = np.maximum(gs2, 1e-9)
-    p11 = np.zeros_like(un); p12 = np.zeros_like(un)
-    p21 = np.zeros_like(un); p22 = np.zeros_like(un)
-    for _ in range(k):
-        rho = rc + wx * un + wy * vn
-        lo = rho < -l_t * gs2
-        hi = rho > l_t * gs2
-        d1 = np.where(lo, l_t * wx, np.where(hi, -l_t * wx, -rho * wx / gs))
-        d2 = np.where(lo, l_t * wy, np.where(hi, -l_t * wy, -rho * wy / gs))
-        un = un + d1 + p.theta * div(p11, p12)
-        vn = vn + d2 + p.theta * div(p21, p22)
-        ux, uy = grad(un)
-        vx, vy = grad(vn)
-        ngu = np.sqrt(ux * ux + uy * uy)
-        ngv = np.sqrt(vx * vx + vy * vy)
-        p11 = (p11 + tau_theta * ux) / (1.0 + tau_theta * ngu)
-        p12 = (p12 + tau_theta * uy) / (1.0 + tau_theta * ngu)
-        p21 = (p21 + tau_theta * vx) / (1.0 + tau_theta * ngv)
-        p22 = (p22 + tau_theta * vy) / (1.0 + tau_theta * ngv)
-    np.testing.assert_allclose(np.asarray(got[0][0]), un, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got[1][0]), vn, atol=1e-5)
-
-
 def test_tvl1_epsilon_early_stop(rng):
-    """epsilon is live (VERDICT r2 weak #8): a loose threshold must
+    """epsilon is live: a loose threshold must
     converge in fewer effective iterations yet stay close to the full
     run on easy motion; epsilon=0 reproduces the fixed-count behavior."""
     h, w = 48, 56
@@ -208,8 +111,7 @@ def _np_tvl1_single_level(prev_u8, curr_u8, n_warps=3, n_iterations=30,
     Zach–Pock–Bischof TV-L1 (the published primal–dual algorithm, per
     the IPOL Sánchez et al. description) — written against the math,
     not against ops/tvl1.py, so it cross-checks the JAX engine the way
-    tests/reference_impl.py cross-checks the Farnebäck chain
-    (VERDICT r4 next #6)."""
+    tests/reference_impl.py cross-checks the Farnebäck chain."""
     from scipy.ndimage import correlate1d
 
     # cv2.getGaussianKernel(5, 0.8) formula.
@@ -296,7 +198,7 @@ def _np_tvl1_single_level(prev_u8, curr_u8, n_warps=3, n_iterations=30,
 
 
 def test_tvl1_matches_numpy_oracle(rng):
-    """The JAX engine (exact warp, xla pd, epsilon=0, single level) must
+    """The JAX engine (epsilon=0, single level) must
     track the independent float64 NumPy Zach–Pock oracle pointwise and
     both must recover a known translation."""
     h, w = 64, 96
@@ -304,8 +206,7 @@ def test_tvl1_matches_numpy_oracle(rng):
     f1 = _texture(h, w, rng, shift=(0.6, -0.4))
     # Single-level convergence needs a real budget: (10, 100) reaches
     # EPE 0.012 on this texture, (5, 50) stalls at 0.40.
-    p = TVL1Params(n_scales=1, n_warps=10, n_iterations=100, epsilon=0.0,
-                   warp_engine="exact", pd_engine="xla")
+    p = TVL1Params(n_scales=1, n_warps=10, n_iterations=100, epsilon=0.0)
     got = np.asarray(tvl1_flow(jnp.asarray(f0), jnp.asarray(f1), p))
     ref = _np_tvl1_single_level(f0, f1, n_warps=10, n_iterations=100)
     # fp32 engine vs fp64 oracle over 1000 coupled iterations.
@@ -313,3 +214,15 @@ def test_tvl1_matches_numpy_oracle(rng):
     inner = ref[12:-12, 12:-12]
     epe = np.sqrt((inner[..., 0] + 0.6) ** 2 + (inner[..., 1] - 0.4) ** 2).mean()
     assert epe < 0.25, epe
+
+
+def test_tvl1_matches_numpy_oracle_second_size(rng):
+    """Same oracle check at a second, non-square size with an odd
+    width, where the divergence and warp edges land differently."""
+    h, w = 40, 57
+    f0 = _texture(h, w, rng)
+    f1 = _texture(h, w, rng, shift=(-0.5, 0.3))
+    p = TVL1Params(n_scales=1, n_warps=6, n_iterations=60, epsilon=0.0)
+    got = np.asarray(tvl1_flow(jnp.asarray(f0), jnp.asarray(f1), p))
+    ref = _np_tvl1_single_level(f0, f1, n_warps=6, n_iterations=60)
+    assert np.abs(got - ref).max() < 2e-2, np.abs(got - ref).max()
